@@ -1,12 +1,12 @@
-"""aruco3_tpu — TPU-native ArUco/AprilTag fiducial detection + IPPE pose.
+"""aruco3_tpu — batched ArUco/AprilTag fiducial detection + IPPE pose in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of the
+A from-scratch JAX/XLA rebuild of the capability surface of the
 JosephCatrambone/aruco3 Rust crate: 15 named marker dictionaries, a batched
 detect pipeline (grayscale -> adaptive threshold -> data-parallel quad
 extraction -> perspective rectification -> bit decode -> Hamming dictionary
 match), IPPE two-pose estimation, a pinhole camera model and marker
 rendering — all compiled to one XLA program per frame batch and shardable
-over a TPU mesh.
+over a device mesh.
 """
 
 from .camera import CameraExtrinsics, CameraIntrinsics, CameraModel

@@ -13,10 +13,10 @@ Capability parity with reference src/aruco.rs:
     grey image, candidate quads, rectified patches, decoded markers
     (aruco.rs:15-21).
 
-TPU-native design: the whole per-frame pipeline is a single jitted function
-over fixed-capacity candidate buffers (no host round-trips between stages);
-``detect_batch`` vmaps it over a frame batch and is the unit that
-``parallel.sharding`` distributes over a TPU mesh.  Host-facing ``detect``
+Design: the whole per-frame pipeline is one plain-JAX function over
+fixed-capacity candidate buffers (no host round-trips between stages);
+``detect_batch`` jits it vmapped over a frame batch, the unit that
+``parallel.sharding`` distributes over a device mesh.  Host-facing ``detect``
 is a thin adapter that feeds one frame through the same compiled program
 and materialises reference-shaped Python objects.
 """
@@ -24,14 +24,24 @@ and materialises reference-shaped Python objects.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from . import frontend, rectify, segment
+from . import pose as pose_mod
 from .dictionaries import ARDictionary
+
+# Per-lane outputs that describe decoded markers (see detect_arrays).
+MARKER_FIELDS = (
+    "marker_valid",
+    "marker_id",
+    "marker_dist",
+    "marker_corners",
+    "marker_code",
+)
 
 
 @dataclass(frozen=True)
@@ -44,8 +54,8 @@ class DetectorConfig:
     fitter's analogue of that gate is the containment test (is the
     component well-covered by its fitted quad), so epsilon scales the
     containment slack: larger epsilon accepts blobbier components, exactly
-    as a larger RDP epsilon would.  TPU-specific capacity/precision knobs
-    live here too so a config fully determines the compiled program.
+    as a larger RDP epsilon would.  The pipeline's capacity/precision
+    knobs live here too so a config fully determines the compiled program.
     """
 
     threshold_window: int = 7
@@ -54,17 +64,13 @@ class DetectorConfig:
     min_corner_separation_factor: float = 0.1
     homography_sample_size: int = 49
     filter_high_bit_errors: bool = True
-    # --- TPU pipeline capacity/behaviour knobs (not in the reference) ---
+    # --- pipeline capacity/behaviour knobs (not in the reference) ---
     max_candidates: int = 32
     max_inner_candidates: int = 12  # hole-border pass lanes (0 disables)
     coarse_factor: int | None = None  # None = auto from image size
     ccl_rounds: int = 3  # see segment.QuadParams.ccl_rounds
     refine_corners: bool = True
     warp_impl: str = "mxu"  # "mxu" (pyramid+matmul) | "gather" (oracle)
-    # Kernel-path selection: "auto" picks the Pallas kernels on TPU and
-    # XLA elsewhere; "never" forces the pure-XLA oracle path; "always"
-    # forces the Pallas kernels even off-TPU (bench/exactness A/Bs).
-    use_pallas: str = "auto"  # "auto" | "never" | "always"
 
 
 @dataclass
@@ -106,20 +112,10 @@ class Detector:
         )
 
     # ---------------------------------------------------------------- jit
-    # NOTE: lru_cache on a method keys on `self`, so the cache holds a
-    # strong reference to up to 32 Detector instances (and their
-    # compiled programs).  Harmless for the intended long-lived-detector
-    # usage; in a service that churns Detector objects, reuse instances
-    # or call Detector._compiled.cache_clear() when discarding them.
-    @functools.lru_cache(maxsize=32)
-    def _compiled(self, height: int, width: int, channels: int):
-        """Compile the batched frame pipeline for a static image shape.
-
-        The returned jitted fn takes (B, H, W[, C]) uint8 (any B; retraced
-        per batch size).
-        """
+    def static_args(self, height: int, width: int):
+        """(params, min_edge, min_sep, ds): the jit-time constants of the
+        pipeline for one image size."""
         cfg = self.config
-        dictionary = self.dictionary
         ds = cfg.coarse_factor or segment.choose_coarse_factor(height, width)
         # Map the reference's RDP epsilon onto the containment gate (see
         # DetectorConfig docstring): ratio 1.0 at the reference default.
@@ -138,19 +134,59 @@ class Detector:
         )
         min_edge = min(width, height) * cfg.min_side_length_factor
         min_sep = min(width, height) * cfg.min_corner_separation_factor
+        return params, min_edge, min_sep, ds
 
-        def pipeline(images: jnp.ndarray):
+    def pipeline(self, height: int, width: int):
+        """The unjitted batched frame pipeline for a static image size:
+        (B, H, W[, C]) uint8 -> ``detect_batch_arrays`` outputs."""
+        statics = self.static_args(height, width)
+
+        def run(images: jnp.ndarray):
             return detect_batch_arrays(
-                images,
-                dictionary,
-                cfg,
-                params,
-                min_edge,
-                min_sep,
-                ds,
+                images, self.dictionary, self.config, *statics
             )
 
-        return jax.jit(pipeline)
+        return run
+
+    def markers_pipeline(
+        self,
+        height: int,
+        width: int,
+        with_pose: bool = False,
+        marker_size_mm: float = 40.0,
+    ):
+        """The unjitted batched pipeline reduced to per-lane marker fields
+        (``MARKER_FIELDS``), plus both IPPE poses of every lane when
+        ``with_pose``: corners normalised per axis by the image size
+        (reference pose.rs:59-62); lanes with ``marker_valid`` False carry
+        meaningless poses."""
+        run = self.pipeline(height, width)
+
+        def markers(images: jnp.ndarray):
+            out = run(images)
+            res = {k: out[k] for k in MARKER_FIELDS}
+            if with_pose:
+                scale = jnp.array([width, height], dtype=jnp.float32)
+                rot, tr, err = pose_mod.solve_normalized_batch(
+                    out["marker_corners"] / scale, marker_size_mm
+                )
+                res["pose_rotations"] = rot
+                res["pose_translations"] = tr
+                res["pose_errors"] = err
+            return res
+
+        return markers
+
+    # NOTE: lru_cache on a method keys on `self`, so the cache holds a
+    # strong reference to up to 32 Detector instances (and their
+    # compiled programs).  Harmless for the intended long-lived-detector
+    # usage; in a service that churns Detector objects, reuse instances
+    # or call Detector._compiled.cache_clear() when discarding them.
+    @functools.lru_cache(maxsize=32)
+    def _compiled(self, height: int, width: int):
+        """The jitted pipeline for a static image size (any batch size and
+        channel count; jit retraces per input shape)."""
+        return jax.jit(self.pipeline(height, width))
 
     # --------------------------------------------------------------- host
     def detect(self, image) -> Detection:
@@ -162,8 +198,7 @@ class Detector:
         arr = np.asarray(image)
         if arr.dtype != np.uint8:
             arr = np.clip(arr, 0, 255).astype(np.uint8)
-        channels = 1 if arr.ndim == 2 else arr.shape[-1]
-        fn = self._compiled(arr.shape[0], arr.shape[1], channels)
+        fn = self._compiled(arr.shape[0], arr.shape[1])
         out = jax.device_get(fn(jnp.asarray(arr)[None]))
         return self._to_host(jax.tree_util.tree_map(lambda x: x[0], out))
 
@@ -172,10 +207,7 @@ class Detector:
 
         Stays on device (no host sync); fields carry a leading batch axis.
         """
-        h, w = images.shape[1], images.shape[2]
-        channels = 1 if images.ndim == 3 else images.shape[-1]
-        fn = self._compiled(h, w, channels)
-        return fn(images)
+        return self._compiled(images.shape[1], images.shape[2])(images)
 
     def _to_host(self, out) -> Detection:
         quads = np.asarray(out["quads"])
@@ -218,19 +250,6 @@ class Detector:
 # --------------------------------------------------------------------------
 # The jitted frame pipeline (pure function of arrays + static config)
 # --------------------------------------------------------------------------
-def _use_pallas(cfg: DetectorConfig) -> bool:
-    """Pallas frontend on TPU-like backends; XLA path on CPU / when off.
-
-    The frontend kernel column-tiles, so arbitrary widths (4K+) stay on
-    the Pallas path within the VMEM budget.
-    """
-    if cfg.use_pallas == "never":
-        return False
-    if cfg.use_pallas == "always":
-        return True
-    return jax.default_backend() not in ("cpu",)
-
-
 def detect_batch_arrays(
     images: jnp.ndarray,
     dictionary: ARDictionary,
@@ -242,265 +261,14 @@ def detect_batch_arrays(
 ):
     """Batched detect pipeline: (B, H, W[, C]) u8 -> batched outputs.
 
-    The frontend (threshold+open+pool) runs either as the fused Pallas
-    kernel (TPU) or the XLA reference path (CPU/tests) — bit-identical.
-    The per-frame tail (fill/CCL/fit/refine/warp/decode/match) is vmapped.
+    ``detect_arrays`` vmapped over the frame axis: every output field
+    gains a leading batch axis.
     """
-    grey = frontend.rgb_to_luma_u8(images)  # (B, H, W)
-
-    use_pallas = _use_pallas(cfg)
-    pallas_refine = use_pallas and params.refine and ds > 1
-    if use_pallas:
-        from .ops.frontend_pallas import fused_threshold_open_pool
-
-        if pallas_refine:
-            # No u8 grey canvas: warp level-0 windows read the packed
-            # plane directly, so the pipeline's second-largest write
-            # never exists.  SPLIT mode (whenever the strip geometry
-            # admits it — see split_strip_rows): the "packed plane" is
-            # a plain u8 image-masked grey plane plus a 32-rows-per-
-            # int32-word near-mask sideband — ~44% of the int16
-            # plane's bytes on the frontend write AND the refine
-            # kernel's whole-plane stream.  min_rows = the deepest
-            # aligned row any consumer DMAs: refine windows, warp
-            # level-0 windows, and the level-1 plane's own windows —
-            # the frontend then pads with the fewest zero strips that
-            # cover it instead of a blanket extra strip.
-            from .ops.frontend_pallas import split_strip_rows
-
-            h, w = grey.shape[1], grey.shape[2]
-            wn = segment.refine_window_size(params, ds)
-            th_split = split_strip_rows(ds)
-            al_r = 32 if th_split else 16  # refine window row alignment
-            al_w = 8 if th_split else 16  # warp L0 row align (u8 / i16)
-            sh_r = -(-(wn + al_r - 1) // al_r) * al_r
-            need_refine = (max(h - wn, 0) // al_r) * al_r + sh_r
-            need_warp = ((max(h, 64) - 64) // al_w) * al_w + (
-                72 if th_split else 80
-            )
-            ph0 = max(h + (h % 2), 64)
-            h1 = max(ph0 // 2, 64)
-            need_l1 = 2 * (((h1 - 64) // 16) * 16 + 80)
-            # RAW-SRC mode (production geometries): the u8 grey plane —
-            # the frontend's single biggest output — is never written.
-            # The refine kernel DMAs each RAW frame into a padded VMEM
-            # scratch itself, and warp level-0 windows DMA the raw
-            # frame with clamped bases; both consume out-of-image
-            # content only under masks/zero weights, so no padded HBM
-            # copy needs to exist.  Requires the split sideband plus
-            # clamp-friendly dims; other geometries keep the plane.
-            raw_src = (
-                th_split is not None
-                and h % 8 == 0
-                and w % 128 == 0
-                and h >= 72
-                and w >= 256
-            )
-            outs = fused_threshold_open_pool(
-                grey,
-                cfg.threshold_window,
-                params.open_radius,
-                ds,
-                emit_packed=True,
-                emit_level1=True,
-                emit_split=th_split is not None,
-                emit_split_grey=not raw_src,
-                # First output = the label kernel's pre-padded coarse
-                # plane, ds-pooled + thresholded in-kernel — the
-                # frontend->coarse XLA glue (row-count plane round trip
-                # + zeros/DUS pad) never exists.
-                emit_coarse=True,
-                min_rows=max(need_refine, need_warp, need_l1),
-            )
-            if raw_src:
-                coarse, near_words, level1 = outs
-                packed = grey  # consumers read the raw frame
-            elif th_split is not None:
-                coarse, packed, near_words, level1 = outs
-            else:
-                coarse, packed, level1 = outs
-                near_words = None
-            if not raw_src:
-                # The warp kernel DMAs (72/80, 256) blocks with no
-                # bounds guard; the plane's padding must cover its
-                # deepest read.
-                assert packed.shape[1] >= need_warp
-                assert (
-                    packed.shape[2]
-                    >= (((max(w, 64) - 64) // 64) * 64 // 128) * 128
-                    + 256
-                )
-        else:
-            black, coarse = fused_threshold_open_pool(
-                grey, cfg.threshold_window, params.open_radius, ds
-            )
-    else:
-
-        def prep(g):
-            white = frontend.adaptive_threshold(g, cfg.threshold_window)
-            b = segment.open_mask(~white, params.open_radius)
-            return b, segment.pool_black(b, ds)
-
-        black, coarse = jax.vmap(prep)(grey)
-
-    if pallas_refine:
-        # Batched path: coarse candidate extraction is vmapped, the
-        # corner refinement runs as one natively-batched Pallas kernel
-        # (per-window DMAs; vmapped dynamic_slice would lower to row
-        # gathers — the dominant cost of the XLA path).
-        from .ops.coarse_pallas import coarse_fits_vmem, fused_fit_exact
-        from .ops.refine_pallas import refine_corners_batch
-
-        hc, wc = -(-h // ds), -(-w // ds)
-        if (
-            coarse_fits_vmem(hc, wc)
-            and fused_fit_exact(hc, wc)
-            and params.max_candidates <= 128
-            and params.max_inner_candidates <= 128
-        ):
-            # ONE Pallas launch for segmentation + fit: the label planes
-            # live and die in VMEM (no HBM round trip, no remap pass),
-            # and the fit runs frame-packed — every plane op and
-            # reduction serves all packed frames.  Bit-matches the
-            # label_planes -> fused_fit_batch pipeline below except on
-            # exact-symmetry extreme-point ties (recall-neutral).
-            from .ops.fit_pallas import fused_coarsefit_batch
-
-            fit1, fit2, ic = fused_coarsefit_batch(
-                coarse,
-                params,
-                ds,
-                params.max_candidates,
-                params.max_inner_candidates,
-                pre_hw=(hc, wc),
-                dup_skip=True,
-            )
-            cand = jax.vmap(
-                lambda f1, f2, icb: segment.merge_fits(
-                    None, None, f1, f2, params, ds, inner_coarse=icb
-                )
-            )(fit1, fit2, ic)
-        else:
-            # Grids exceeding the mega-kernel's VMEM budget (8K+ frames
-            # at small user-set coarse factors) or its bf16 exactness
-            # envelope (wc > 255 / rp*cp > 32768 — e.g. portrait 1080p,
-            # or 1080p at coarse_factor <= 7) take the XLA label path,
-            # which is identical bit-for-bit, just slower.  The fit
-            # still runs as the lane-skipping Pallas kernels.
-            labels1, labels2 = jax.vmap(
-                lambda c: segment.label_planes(c, params)
-            )(coarse[:, :hc, :wc] != 0)
-            from .ops.fit_pallas import fused_fit_batch
-
-            fit1, fit2 = fused_fit_batch(
-                labels1,
-                labels2,
-                ds,
-                params,
-                params.max_candidates,
-                params.max_inner_candidates,
-                dup_skip=True,
-            )
-            cand = jax.vmap(
-                lambda lab, lab2, f1, f2: segment.merge_fits(
-                    lab, lab2, f1, f2, params, ds
-                )
-            )(labels1, labels2, fit1, fit2)
-        # The inner footprint goes to the refinement kernel at coarse
-        # resolution (it upsamples per window in VMEM) — merging a
-        # full-res bit plane in XLA costs a read-modify-write of the
-        # whole packed plane.
-        quads = refine_corners_batch(
-            packed,
-            cand["quads"],
-            cand["centroids"],
-            cand["is_inner"],
-            ds,
-            wn,
-            inner_coarse=cand["inner_coarse"],
-            image_hw=(h, w),
-            valid=cand["valid"],
-            near_words=near_words,
-            strip_rows=th_split or 0,
-            raw_src=raw_src,
+    return jax.vmap(
+        lambda im: detect_arrays(
+            im, dictionary, cfg, params, min_edge, min_sep, ds
         )
-
-        def gate(q, v, sz, ov):
-            return segment.finalize_quads(
-                q, v, sz, ov, params, min_edge, min_sep
-            )
-
-        quads, valid, stats = jax.vmap(gate)(
-            quads, cand["valid"], cand["sizes"], cand["overflow"]
-        )
-
-        # Homography + warp: batched, windows DMA'd by the warp kernel.
-        # Level-0 windows read the packed int16 plane directly (grey in
-        # bits 0-7, zero outside the image — the warp kernel masks off
-        # the near flag); the bf16 canvas holds levels >= 1 only (75%
-        # less assembly traffic).
-        s = cfg.homography_sample_size
-        H, h_valid = rectify.homography_square_to_quad(quads, s)
-        # Level 1 comes precomputed from the frontend kernel (the strips
-        # were already in VMEM there); the canvas never reads the frame.
-        # When the plane's padding admits the aligned window DMAs
-        # (always at production geometries), level-1 windows read it
-        # directly and the canvas starts at level 2 — assembly then
-        # never touches a full- or half-resolution plane.
-        nlv = _num_levels(h, w)
-        l1_ok = rectify.l1_direct_ok(
-            level1.shape[1:], rectify.pyramid_level_shapes(h, w, nlv), nlv
-        )
-        canvas, offsets, shapes = rectify.build_packed_pyramid(
-            grey, nlv, skip_level0=True, level1=level1, skip_level1=l1_ok
-        )
-        # Decode fused into the warp kernel epilogue (the samples are
-        # already in VMEM there): Otsu + binarize + Triangle resize +
-        # cell rule run per window in-kernel, and the decode stage's
-        # XLA round trips over (B, K, S^2) sample tensors never happen.
-        # The XLA decode_patches path remains for the oracle/XLA mode
-        # and for mark sizes whose cell grid exceeds one 128-lane row.
-        mark_size = dictionary.get_mark_size()
-        fuse_mark = mark_size if mark_size * mark_size <= 128 else 0
-        warped = rectify.warp_patches_dma(
-            canvas,
-            offsets,
-            shapes,
-            H,
-            quads,
-            s,
-            valid=valid & h_valid,
-            src=packed,
-            src_halo=(0, 0),
-            image_hw=(h, w),
-            l1_plane=level1 if l1_ok else None,
-            raw_src=raw_src,
-            fuse_decode_mark=fuse_mark,
-        )
-        if fuse_mark:
-            patches, grids = warped
-            out = jax.vmap(
-                lambda q, v, hv, p, st, g: _match_tail(
-                    q, v, hv, p, st, dictionary, cfg, grids=g
-                )
-            )(quads, valid, h_valid, patches, stats, grids)
-        else:
-            patches = warped
-            out = jax.vmap(
-                lambda q, v, hv, p, st: _match_tail(
-                    q, v, hv, p, st, dictionary, cfg
-                )
-            )(quads, valid, h_valid, patches, stats)
-    else:
-
-        def tail(g, b, c):
-            return _detect_tail(
-                g, b, c, dictionary, cfg, params, min_edge, min_sep, ds
-            )
-
-        out = jax.vmap(tail)(grey, black, coarse)
-    out["grey"] = grey
-    return out
+    )(images)
 
 
 def detect_arrays(
@@ -592,23 +360,16 @@ def _match_tail(
     stats: dict,
     dictionary: ARDictionary,
     cfg: DetectorConfig,
-    grids: jnp.ndarray | None = None,
 ):
-    mark_size = dictionary.get_mark_size()
-    if grids is not None:
-        # Cell grids decoded in the warp kernel epilogue — only the
-        # rotation/border/matching tail runs here, on (K, m*m) tensors.
-        bits, border_valid = rectify.decode_grids(grids, mark_size)
-    else:
-        bits, border_valid = rectify.decode_patches(patches, mark_size)
+    bits, border_valid = rectify.decode_patches(
+        patches, dictionary.get_mark_size()
+    )
 
-    # Dictionary match across 4 rotations in one MXU matmul.
+    # Dictionary match across 4 rotations in one matmul.
     ids_r, dists_r = dictionary.find_nearest_bits(bits)  # (K, 4) each
     rot = jnp.argmin(dists_r, axis=-1).astype(jnp.int32)  # first-min wins
 
-    # Rotation selection as 4-way selects: take_along_axis lowers to
-    # serialized gathers on TPU (the pose/glue stage's dominant cost at
-    # batch 128); a static 4-term select chain is pure VPU.
+    # Rotation selection as a static 4-term select chain.
     def take(a):
         return sum(
             jnp.where(rot == r, a[:, r], 0) for r in range(4)

@@ -9,9 +9,9 @@ Parity surface (vs reference src/dictionaries.rs):
   * tau==0 dictionaries (ARTAG, ARTOOLKITPLUS, ARTOOLKITPLUSBCH) compute tau
     as the minimum pairwise Hamming distance (dictionaries.rs:124,129-138).
 
-TPU-native design: the codebook is materialised once as a ±1 bit-plane matrix
-padded to a multiple of 128 lanes; the whole-dictionary nearest-code search is
-one dense (M, bits) x (bits, N) matmul on the MXU followed by an argmin —
+Design: the codebook is materialised once as a ±1 bit-plane matrix padded to
+a multiple of 128 columns; the whole-dictionary nearest-code search is one
+dense (M, bits) x (bits, N) matmul followed by an argmin —
 no per-code scalar loop anywhere on the hot path.
 """
 
@@ -34,7 +34,7 @@ from .utils.bits import (
 
 _DATA_PATH = os.path.join(os.path.dirname(__file__), "data", "codebooks.npz")
 
-# Lane padding for the MXU: bit-plane matrices are padded to 128 columns.
+# Bit-plane matrices are padded to a multiple of 128 columns.
 _LANE = 128
 
 
@@ -91,7 +91,7 @@ class ARDictionary:
     """A named marker dictionary plus its device-side matcher tables.
 
     Mirrors reference dictionaries.rs:22-28 (num_bits, tau, code_list) and
-    adds the TPU-ready representations used by the jitted detector.
+    adds the device representations used by the jitted detector.
     """
 
     name: str
@@ -170,7 +170,9 @@ class ARDictionary:
         """Batched nearest-code search from raw bit vectors.
 
         query_bits: (..., num_bits) in {0,1} (bit 0 = LSB of the code word).
-        Returns (ids, dists): (...,) int32 each.  One MXU matmul + argmin;
+        Returns (ids, dists): (...,) int32 each.  One matmul + argmin (the
+        ±1 products and their sums are small integers, exact in TF32 and
+        bf16 as well as f32);
         ties resolve to the lowest index, matching the strict `<` update in
         the reference scan (dictionaries.rs:178-187).
         """

@@ -11,12 +11,10 @@ dependencies):
     in exact integer arithmetic as ``pixel * area > sum`` so there is no
     floating-point mean rounding anywhere.
 
-TPU-first design: the box sums are two separable clamped cumsum-difference
-passes in int32 (row pass bounds values at 255*(2r+1); column pass at
-255*(2r+1)*H — exact in int32 for any realistic frame), so the whole
-threshold stage is a handful of fused dense XLA ops.  A Pallas fused
-grayscale+threshold kernel (ops/) can replace this path on TPU; this module
-is the portable reference implementation and the correctness oracle.
+Design: the box sums are two separable clamped cumsum-difference passes in
+int32 (row pass bounds values at 255*(2r+1); column pass at 255*(2r+1)*H —
+exact in int32 for any realistic frame), so the whole threshold stage is a
+handful of fused dense XLA ops.
 """
 
 from __future__ import annotations
@@ -54,8 +52,7 @@ def _clamped_window_sum_1d(
     """Windowed sums along ``axis`` from an exclusive cumsum of length+1,
     with the window clamped to [0, length).  Returns (sums, counts).
 
-    Expressed as edge-clamped pad + two static slices (no take/gather —
-    TPU lowers static gathers poorly).
+    Expressed as edge-clamped pad + two static slices (no take/gather).
     """
     # cum has length+1 entries along `axis` (exclusive prefix sums).
     # Window sum at i = cum[min(i + r, L-1) + 1] - cum[max(i - r, 0)].

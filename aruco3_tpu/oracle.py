@@ -1,5 +1,5 @@
 """Reference-parity oracle: a faithful numpy port of the reference detect
-pipeline, used (a) to MEASURE recall/corner parity of the TPU detector
+pipeline, used (a) to MEASURE recall/corner parity of the detector
 against the reference's algorithm (BASELINE.json's >=99% recall-parity
 requirement — no Rust toolchain exists in this image, so the reference is
 re-expressed host-side), and (b) as a portable, dependency-free CPU
@@ -22,8 +22,8 @@ Pipeline, stage by stage (reference src/aruco.rs:52-121):
   * nearest-code scan, strict-< tie-breaks, corners rotate_left(rot)
                                                        aruco.rs:74-113
 
-The sequential border following here is exactly the control flow the TPU
-framework must NOT use (it serializes); segment.py replaces it with
+The sequential border following here is exactly the control flow the
+batched detector must NOT use (it serializes); segment.py replaces it with
 data-parallel CCL.  Recall parity between the two stacks is therefore a
 measured property, not a structural one — tests/test_parity.py runs this
 oracle A/B against the jitted detector over randomized scenes.

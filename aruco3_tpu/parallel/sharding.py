@@ -1,28 +1,22 @@
-"""Multi-chip execution: frame-batch data parallelism over a TPU mesh.
+"""Multi-device execution: frame-batch data parallelism over a device mesh.
 
 The reference is single-threaded per frame (SURVEY §2: its only implicit
-parallelism is per-frame independence).  On TPU the natural scaling axis is
-the frame batch: shard (B, H, W[, C]) over the mesh's 'batch' axis with
-``jax.sharding``/``shard_map`` so every chip runs the identical detect(+pose)
-program on its local shard, with zero cross-chip communication on the hot
-path (detections are per-frame).  Collectives only appear in the optional
-global summaries (e.g. total marker counts via psum) and — in later
-spatial-sharding configs — halo exchanges.
+parallelism is per-frame independence), so the natural scaling axis is the
+frame batch: shard (B, H, W[, C]) over a flat 'batch' mesh axis with
+``shard_map`` so every device runs the identical detect(+pose) program on
+its local shard, with no cross-device communication on the hot path
+(detections are per-frame).  Row-band spatial sharding, which does need
+halo exchanges, lives in ``parallel.spatial``.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from .. import pose as pose_mod
-from .. import segment
-from ..detector import Detector, DetectorConfig, detect_batch_arrays
-from ..dictionaries import ARDictionary
+from ..detector import Detector
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "batch") -> Mesh:
@@ -52,50 +46,13 @@ def build_sharded_detect(
     Returns a jitted fn: (B, H, W[, C]) uint8 -> dict of batched outputs,
     each sharded over the mesh batch axis.  B must divide by the mesh size.
     """
-    cfg = detector.config
-    dictionary = detector.dictionary
-    ds = cfg.coarse_factor or segment.choose_coarse_factor(height, width)
-    params = segment.QuadParams(
-        max_candidates=cfg.max_candidates,
-        coarse_factor=ds,
-        ccl_rounds=cfg.ccl_rounds,
-        refine=cfg.refine_corners,
+    local_batch_fn = detector.markers_pipeline(
+        height, width, with_pose=with_pose, marker_size_mm=marker_size_mm
     )
-    min_edge = min(width, height) * cfg.min_side_length_factor
-    min_sep = min(width, height) * cfg.min_corner_separation_factor
-
-    def local_batch_fn(frames):
-        """Runs on each device over its local frame shard."""
-        out = detect_batch_arrays(
-            frames, dictionary, cfg, params, min_edge, min_sep, ds
-        )
-        res = {
-            "marker_valid": out["marker_valid"],
-            "marker_id": out["marker_id"],
-            "marker_dist": out["marker_dist"],
-            "marker_corners": out["marker_corners"],
-            "marker_code": out["marker_code"],
-        }
-        if with_pose:
-            # Normalize per-axis by image dims (reference pose.rs:59-62)
-            # and solve IPPE for every candidate lane (masked lanes produce
-            # garbage poses that carry marker_valid=False).
-            norm = out["marker_corners"] / jnp.array(
-                [float(width), float(height)], dtype=jnp.float32
-            )
-            rot, tr, err = pose_mod.solve_normalized_batch(
-                norm, marker_size_mm
-            )
-            res["pose_rotations"] = rot
-            res["pose_translations"] = tr
-            res["pose_errors"] = err
-        return res
-
     in_spec = P(axis, *([None] * (2 if channels == 1 else 3)))
 
-    # shard_map: each chip runs the identical local pipeline on its frame
-    # shard (the Pallas frontend kernel requires per-device execution; the
-    # detect path needs no cross-chip collectives).
+    # shard_map: each device runs the identical local pipeline on its
+    # frame shard; detection needs no cross-device collectives.
     step = jax.jit(
         jax.shard_map(
             local_batch_fn,

@@ -2,15 +2,15 @@
 
 This is the detection analogue of context/sequence parallelism (SURVEY §5):
 the full-resolution frontend (the only stage whose cost scales with pixel
-count) runs sharded, each chip processing a horizontal band of the frame:
+count) runs sharded, each device processing a horizontal band of the frame:
 
-  1. halo exchange: each chip sends its boundary rows to its neighbours
+  1. halo exchange: each device sends its boundary rows to its neighbours
      via ``jax.lax.ppermute`` (the threshold box + opening need
      window + 2*open_radius rows of context),
   2. per-shard exact adaptive threshold + opening + pooling (global border
      semantics preserved through global row indexing),
-  3. the tiny coarse mask and the black mask are ``all_gather``-ed over ICI
-     and the fixed-capacity candidate tail runs replicated (its cost is
+  3. the tiny coarse mask and the black mask are ``all_gather``-ed and the
+     fixed-capacity candidate tail runs replicated (its cost is
      independent of resolution).
 
 Useful for 8K+ frames or very small meshes; for ordinary workloads,
@@ -20,14 +20,11 @@ needs no communication at all.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from .. import frontend, segment
+from .. import segment
 from ..detector import Detector, _detect_tail
 
 
@@ -83,7 +80,7 @@ def _threshold_open_tile(
 
     # Opening with the full-frame boundary semantics: erosion sees black
     # (True) outside the image; the eroded mask is cleared outside before
-    # dilation (cf. segment.open_mask's pad values and the Pallas kernel).
+    # dilation (cf. segment.open_mask's pad values).
     for _ in range(open_radius):
         black = segment._erode3(black)
     black = black & inside
@@ -107,17 +104,9 @@ def build_spatial_detect(
     """
     cfg = detector.config
     dictionary = detector.dictionary
-    ds = cfg.coarse_factor or segment.choose_coarse_factor(height, width)
-    params = segment.QuadParams(
-        max_candidates=cfg.max_candidates,
-        coarse_factor=ds,
-        ccl_rounds=cfg.ccl_rounds,
-        refine=cfg.refine_corners,
-    )
-    min_edge = min(width, height) * cfg.min_side_length_factor
-    min_sep = min(width, height) * cfg.min_corner_separation_factor
+    params, min_edge, min_sep, ds = detector.static_args(height, width)
     n_dev = mesh.shape[axis]
-    halo = cfg.threshold_window + 2 * 2  # window + 2*open_radius
+    halo = cfg.threshold_window + 2 * params.open_radius
     assert height % (n_dev * ds) == 0, (
         f"H={height} must divide by devices*coarse ({n_dev}*{ds})"
     )
@@ -145,13 +134,13 @@ def build_spatial_detect(
             height,
             width,
             cfg.threshold_window,
-            2,
+            params.open_radius,
             halo,
         )
         coarse_shard = segment.pool_black(black_shard, ds)
 
         # Gather the (small) masks and the grey frame; the candidate tail
-        # is resolution-independent and runs replicated on every chip.
+        # is resolution-independent and runs replicated on every device.
         black = jax.lax.all_gather(
             black_shard, axis, tiled=True
         )  # (H, W)

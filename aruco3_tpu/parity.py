@@ -1,4 +1,4 @@
-"""Recall/corner parity harness: TPU detector vs the reference-pipeline
+"""Recall/corner parity harness: detector vs the reference-pipeline
 oracle (oracle.py) over randomized scenes.
 
 BASELINE.json requires >=99% detection-recall parity vs the reference on a
@@ -6,8 +6,8 @@ randomized e2e suite.  This module generates seeded scene families
 (rotation/scale/perspective/noise sweeps, dark backgrounds, nested and
 multi-marker layouts), runs both detectors, and reports:
 
-  * oracle_recall / tpu_recall: fraction of planted markers found;
-  * parity: fraction of oracle-found (scene, id) pairs the TPU detector
+  * oracle_recall / det_recall: fraction of planted markers found;
+  * parity: fraction of oracle-found (scene, id) pairs the detector
     also finds — THE headline number (>=0.99 required);
   * corner error stats of each detector vs ground truth.
 
@@ -132,11 +132,11 @@ class ParityResult:
     n_scenes: int = 0
     n_markers: int = 0
     oracle_found: int = 0
-    tpu_found: int = 0
+    det_found: int = 0
     both_found: int = 0
-    tpu_errs: list = field(default_factory=list)
+    det_errs: list = field(default_factory=list)
     oracle_errs: list = field(default_factory=list)
-    # per scene-family counts: kind -> [n_markers, oracle, tpu, both]
+    # per scene-family counts: kind -> [n_markers, oracle, detector, both]
     families: dict = field(default_factory=dict)
 
     @property
@@ -148,17 +148,17 @@ class ParityResult:
         return self.oracle_found / max(self.n_markers, 1)
 
     @property
-    def tpu_recall(self) -> float:
-        return self.tpu_found / max(self.n_markers, 1)
+    def det_recall(self) -> float:
+        return self.det_found / max(self.n_markers, 1)
 
     def summary(self) -> dict:
-        te = np.array(self.tpu_errs) if self.tpu_errs else np.zeros(1)
+        te = np.array(self.det_errs) if self.det_errs else np.zeros(1)
         oe = np.array(self.oracle_errs) if self.oracle_errs else np.zeros(1)
         per_family = {
             kind: {
                 "n_markers": int(n),
                 "oracle_found": int(o),
-                "tpu_found": int(t),
+                "det_found": int(t),
                 "parity": round(b / max(o, 1), 4),
             }
             for kind, (n, o, t, b) in sorted(self.families.items())
@@ -167,10 +167,10 @@ class ParityResult:
             "n_scenes": self.n_scenes,
             "n_markers": self.n_markers,
             "oracle_recall": round(self.oracle_recall, 4),
-            "tpu_recall": round(self.tpu_recall, 4),
+            "det_recall": round(self.det_recall, 4),
             "parity": round(self.parity, 4),
-            "tpu_corner_mean_px": round(float(te.mean()), 3),
-            "tpu_corner_p99_px": round(float(np.percentile(te, 99)), 3),
+            "det_corner_mean_px": round(float(te.mean()), 3),
+            "det_corner_p99_px": round(float(np.percentile(te, 99)), 3),
             "oracle_corner_mean_px": round(float(oe.mean()), 3),
             "per_family": per_family,
         }
@@ -184,7 +184,7 @@ def run_parity(
     match_px: float = 6.0,
     detector_config: DetectorConfig | None = None,
 ) -> ParityResult:
-    """A/B the TPU detector against the reference oracle."""
+    """A/B the detector against the reference oracle."""
     d = ARDictionary.new_from_named_dict(dictionary_name)
     det = Detector(detector_config or DetectorConfig(), d)
     od = OracleDetector(d)
@@ -194,7 +194,7 @@ def run_parity(
     for k in range(n_scenes):
         kind = SCENE_KINDS[k % len(SCENE_KINDS)]
         img, truths = generate_scene(d, rng, image_size, kind)
-        tpu = det.detect(img).markers
+        found = det.detect(img).markers
         orc = od.detect(img)
         res.n_scenes += 1
         fam = res.families.setdefault(kind, np.zeros(4, np.int64))
@@ -203,7 +203,7 @@ def run_parity(
             fam[0] += 1
             t = [
                 m
-                for m in tpu
+                for m in found
                 if m.id == mid and _corner_err(m.corners, truth) < match_px
             ]
             o = [
@@ -212,9 +212,9 @@ def run_parity(
                 if m.id == mid and _corner_err(m.corners, truth) < match_px
             ]
             if t:
-                res.tpu_found += 1
+                res.det_found += 1
                 fam[2] += 1
-                res.tpu_errs.append(_corner_err(t[0].corners, truth))
+                res.det_errs.append(_corner_err(t[0].corners, truth))
             if o:
                 res.oracle_found += 1
                 fam[1] += 1

@@ -1,4 +1,4 @@
-"""IPPE (Infinitesimal Plane-based Pose Estimation) — batched, TPU-native.
+"""IPPE (Infinitesimal Plane-based Pose Estimation) — batched.
 
 Recovers the two physically plausible 6-DoF poses of a square fiducial from
 its four image corners.  Capability parity with reference src/pose.rs:
@@ -12,7 +12,7 @@ its four image corners.  Capability parity with reference src/pose.rs:
   * ``solve_with_normalized_points`` — poses ordered by reprojection error
     (pose.rs:64-81).
 
-Design differences from the reference (TPU-first, not a translation):
+Design differences from the reference (not a translation):
   * Everything is expressed as batched ``jnp`` linear algebra over an
     arbitrary leading marker axis; the scalar API is a thin wrapper over the
     batch path.
@@ -28,21 +28,21 @@ IPPE-derived expected rotations/translations from pose.rs:457-598.
 
 from __future__ import annotations
 
-from functools import partial
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from flax import struct
 
 from .camera import CameraIntrinsics
 
 _DEGENERATE_EPS = 1e-6  # find_rotation_to_z stability guard (pose.rs:245)
 _Z_CLAMP = 1e-5  # reprojection z clamp (pose.rs:342-343)
 
-# All geometry matmuls are tiny (3x3 / 8x8); on TPU the default matmul
-# precision is bfloat16, which is far too coarse for pose recovery.  Every
-# dot in this module goes through _mm with full float32 precision.
+# All geometry matmuls are tiny (3x3 / 8x8); an accelerator's default
+# matmul precision (bf16 or TF32 inputs) is far too coarse for pose
+# recovery.  Every dot in this module goes through _mm with full float32
+# precision.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -52,7 +52,12 @@ def _mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-@struct.dataclass
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["error", "rotation", "translation"],
+    meta_fields=[],
+)
+@dataclasses.dataclass(frozen=True)
 class MarkerPose:
     """Rigid transform placing a canonical marker into the camera frame.
 
@@ -121,7 +126,7 @@ def compute_homography_from_marker_square(
     Closed form (cf. the expanded closed form at reference pose.rs:96-123):
     the unit-square projective-interpolation homography composed with the
     canonical-square -> unit-square affine map, normalized to H[2,2] = 1.
-    Batched 8x8 LU solves loop on TPU; this is ~20 flops per candidate.
+    ~20 flops per candidate instead of a batched 8x8 LU solve.
     """
     tp = jnp.asarray(target_points, dtype=jnp.float32)
     hw = 0.5 * jnp.asarray(marker_size_mm, dtype=jnp.float32)
@@ -326,14 +331,11 @@ def solve_canonical_form(
     Returns (rotations (..., 2, 3, 3), translations (..., 2, 3),
     errors (..., 2)) — unsorted (candidate order as constructed).
 
-    TPU-native structure-of-arrays formulation: every quantity is a
-    (batch,)-shaped component vector, so the whole solve is elementwise
-    VPU math over the candidate lanes.  The earlier (batch, 3, 3)
-    matmul/`linalg.solve` form paid a ~40x layout tax (3x3 trailing dims
-    pad to (8, 128) TPU tiles) and the batched LU serialized; the math
-    here is identical (same formulas as compute_rotations /
-    compute_translation / compute_reprojection_error, which remain as the
-    reference-shaped API).
+    Structure-of-arrays formulation: every quantity is a (batch,)-shaped
+    component vector, so the whole solve is elementwise math over the
+    candidate lanes, with no (batch, 3, 3) matmuls or batched solves.  The
+    math is identical to compute_rotations / compute_translation /
+    compute_reprojection_error, which remain as the reference-shaped API.
     """
     h = homography
     j00 = h[..., 0, 0] - h[..., 2, 0] * h[..., 0, 2]

@@ -12,10 +12,11 @@ Capability parity (vs reference src/aruco.rs):
     (aruco.rs:288-292), and the MSB-first inner-grid read with 3 extra 90°
     CCW rotations (aruco.rs:296-326).
 
-TPU-first design: every candidate is a lane in a fixed-capacity batch.
-The warp is one gather + fused bilinear blend; Otsu histograms are a
-broadcast-compare-reduce; the Triangle resize is two small matmuls
-(L @ patch @ L^T) that ride the MXU; rotations are static jnp.rot90 views.
+Design: every candidate is a lane in a fixed-capacity batch.  The warp
+samples a per-candidate pyramid window with separable bilinear weight
+matmuls; Otsu histograms are a one-hot outer product; the Triangle resize
+is two small matmuls (L @ patch @ L^T); rotations are static jnp.rot90
+views.
 Invalid lanes (masked candidates, failed border gates) are carried as
 validity masks — no dynamic shapes anywhere.
 """
@@ -54,8 +55,7 @@ def homography_square_to_quad(
     # Closed form for unit-square -> quad (then compose the 1/s scale):
     # the projective-interpolation construction (same approach as the
     # reference's fully expanded homography, pose.rs:95-123) — ~20 flops
-    # per quad instead of a batched 8x8 LU solve (batched LU loops
-    # serialize on TPU).
+    # per quad instead of a batched 8x8 LU solve.
     u0, u1, u2, u3 = (q[..., i, 0] for i in range(4))
     v0, v1, v2, v3 = (q[..., i, 1] for i in range(4))
     d1u = u1 - u2
@@ -93,9 +93,9 @@ def homography_square_to_quad(
 
 
 # --------------------------------------------------------------------------
-# Bilinear patch warp — MXU path (pyramid + window slice + weight matmul)
+# Bilinear patch warp — matmul path (pyramid + window slice + weight matmul)
 # --------------------------------------------------------------------------
-_WARP_WIN = 64  # VMEM window side; markers bigger than ~60px/level go up a level
+_WARP_WIN = 64  # window side; markers bigger than ~60px/level go up a level
 
 
 def build_pyramid(grey: jnp.ndarray, levels: int) -> list[jnp.ndarray]:
@@ -128,9 +128,8 @@ def _warp_setup(
 ):
     """Select per-candidate pyramid windows + window-space sample coords.
 
-    Shared by the XLA eval (warp_patches_mxu) and the Pallas eval
-    (warp_patches_pallas).  Returns (windows (K, win, win) f32,
-    ux (K, S2), uy (K, S2), bad (K, S2) bool).
+    Returns (windows (K, win, win) f32, ux (K, S2), uy (K, S2),
+    bad (K, S2) bool).
     """
     levels = len(pyramid)
     s = patch_size
@@ -165,9 +164,8 @@ def _warp_setup(
     center = (bmin + bmax) * 0.5  # (K, 2) image coords
 
     # Pack all levels into ONE row-concatenated buffer so each candidate
-    # needs a single dynamic_slice.  (Slicing at every level and selecting
-    # costs K*L window gathers — measured as the dominant warp cost; the
-    # pack itself is one ~1.33x-frame-size copy.)  Right-padding with
+    # needs a single dynamic_slice instead of K*L window slices (the pack
+    # itself is one ~1.33x-frame-size copy).  Right-padding with
     # zeros matches the out-of-image black default.
     w0 = pyramid[0].shape[1]
     padded = [
@@ -227,14 +225,13 @@ def warp_patches_mxu(
     quads: jnp.ndarray,
     patch_size: int,
 ) -> jnp.ndarray:
-    """Gather-free perspective warp: one small matmul per candidate.
+    """Perspective warp as one small matmul per candidate.
 
     Per candidate: pick the pyramid level where the quad's bbox fits a
     64x64 window, dynamic-slice that window, and evaluate all S*S bilinear
     samples as T = Wx @ window^T followed by a row-wise weighted sum with
     Wy — the bilinear weights live in two dense (S^2, 64) separable weight
-    matrices, so the whole warp rides the MXU with zero gathers (TPU
-    gathers serialize; see segment.label_components for the same story).
+    matrices, so the warp needs no per-sample gather.
 
     Samples outside the image resolve to 0 (the reference's black default,
     aruco.rs:253): out-of-window coordinates produce all-zero weight rows.
@@ -249,7 +246,7 @@ def warp_patches_mxu(
     jcols = jnp.arange(win, dtype=jnp.float32)
     windows, ux, uy, bad = _warp_setup(pyramid, H, quads, patch_size)
 
-    # Separable bilinear weights: (K, S2, win) each.  bf16 halves the HBM
+    # Separable bilinear weights: (K, S2, win) each.  bf16 halves the memory
     # traffic of the weight tensors (the matmul itself is tiny); weight
     # quantization error <= 2^-8 on [0,1] is far below the Otsu margin.
     wx = jnp.maximum(0.0, 1.0 - jnp.abs(ux[..., None] - jcols)).astype(
@@ -276,416 +273,6 @@ def warp_patches_mxu(
     # (black, the reference default); degenerate homographies are masked.
     vals = jnp.where(bad, 0.0, vals)
     return vals.reshape(k, s, s)
-
-
-def warp_patches_pallas(
-    pyramid: list[jnp.ndarray],
-    H: jnp.ndarray,
-    quads: jnp.ndarray,
-    patch_size: int,
-) -> jnp.ndarray:
-    """Same warp as warp_patches_mxu but evaluated by the Pallas kernel
-    (ops.warp_pallas.warp_eval): the bilinear weight planes never touch
-    HBM.  Numerics match warp_patches_mxu to bf16 rounding."""
-    from .ops.warp_pallas import warp_eval
-
-    s = patch_size
-    k = H.shape[0]
-    windows, ux, uy, bad = _warp_setup(pyramid, H, quads, patch_size)
-    vals = warp_eval(windows, ux, uy)
-    vals = jnp.where(bad, 0.0, vals)
-    return vals.reshape(k, s, s)
-
-
-# --------------------------------------------------------------------------
-# Bilinear patch warp — Pallas DMA path (batched; windows never hit HBM)
-# --------------------------------------------------------------------------
-def pyramid_level_shapes(h: int, w: int, levels: int):
-    """Padded (ph, pw) per pyramid level — the pure-int twin of
-    build_pyramid/build_packed_pyramid's padding math (pad to even first,
-    then clamp to the 64-px warp window)."""
-    out = []
-    for _ in range(levels):
-        ph = max(h + (h % 2), _WARP_WIN)
-        pw = max(w + (w % 2), _WARP_WIN)
-        out.append((ph, pw))
-        h, w = ph // 2, pw // 2
-    return out
-
-
-def build_packed_pyramid(
-    grey: jnp.ndarray,
-    levels: int,
-    skip_level0: bool = False,
-    level1: jnp.ndarray | None = None,
-    skip_level1: bool = False,
-):
-    """(B, H, W) u8 -> one bf16 canvas with pyramid levels stacked.
-
-    Level semantics match build_pyramid exactly (pad to >=64/even, 2x2 box
-    mean).  16 zero rows separate levels and >=192 zero lanes pad the
-    right edge so the warp kernel's aligned (80, 256) window DMAs can
-    never read another level's pixels (zeros == the black default).
-
-    With ``skip_level0`` the canvas holds levels >= 1 only (level-0
-    windows DMA straight from the frontend's padded u8 grey canvas — see
-    ops.warp_gather): the full-resolution level is ~75% of the canvas
-    bytes, so skipping its cast/pad/concat removes most of the canvas
-    assembly traffic.  ``offsets[0]`` is then a dead placeholder.
-
-    With ``level1`` (requires skip_level0) the caller supplies pyramid
-    level 1 precomputed — the fused frontend kernel emits it
-    bit-identically (ops.frontend_pallas emit_level1) — so this function
-    never touches the full-resolution image: levels >= 2 pool down from
-    the supplied plane.  ``level1`` may be larger than the true level-1
-    size (zero-padded); it is cropped here.
-
-    Returns (canvas (B, Hcan, Wcan) bf16, row_offsets, level_shapes).
-    """
-    b, h, w = grey.shape
-    img = grey.astype(jnp.bfloat16)
-    if skip_level1:
-        # Level-1 windows DMA straight from the supplied level-1 plane
-        # (ops.warp_gather source 2): the canvas starts at level 2.
-        assert level1 is not None, "skip_level1 requires the level1 plane"
-    if level1 is not None:
-        assert skip_level0, "level1 shortcut only valid when skipping L0"
-        ph0 = max(h + (h % 2), _WARP_WIN)
-        pw0 = max(w + (w % 2), _WARP_WIN)
-        img = level1[:, : ph0 // 2, : pw0 // 2]
-    padded_levels = []
-    shapes = []
-    for lvl in range(levels):
-        if lvl == 0 and level1 is not None:
-            # Level 0 is external; record its padded shape only.
-            padded_levels.append(None)
-            shapes.append((ph0, pw0))
-            continue
-        hh, ww = img.shape[1], img.shape[2]
-        # Even-first padding (see build_pyramid): keeps ph/pw even for any
-        # level size, including odd sizes below the window (720p level 4).
-        ph = max(hh + (hh % 2), _WARP_WIN)
-        pw = max(ww + (ww % 2), _WARP_WIN)
-        padded = jnp.pad(img, ((0, 0), (0, ph - hh), (0, pw - ww)))
-        padded_levels.append(padded)
-        shapes.append((ph, pw))
-        # 2x2 box means as two 2-hot MXU matmuls (strided slices and
-        # reshape-sums both lower poorly on TPU).  bf16 inputs with f32
-        # accumulation: <=0.25 grey rounding per level — far below the
-        # Otsu margin downstream.
-        rsel = np.zeros((ph // 2, ph), np.float32)
-        rsel[np.arange(ph) // 2, np.arange(ph)] = 1.0
-        csel = np.zeros((pw, pw // 2), np.float32)
-        csel[np.arange(pw), np.arange(pw) // 2] = 0.25
-        r = jnp.einsum(
-            "rh,bhw->brw",
-            jnp.asarray(rsel, dtype=jnp.bfloat16),
-            padded,
-            preferred_element_type=jnp.float32,
-        )
-        img = jnp.einsum(
-            "brw,wc->brc",
-            r.astype(jnp.bfloat16),
-            jnp.asarray(csel, dtype=jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.bfloat16)
-    start = (2 if skip_level1 else 1) if skip_level0 else 0
-    if start >= levels:
-        # Single-level pyramid with level 0 external: dummy canvas.
-        canvas = jnp.zeros((b, 96, 128), jnp.bfloat16)
-        return canvas, [0] * levels, shapes
-    w0 = shapes[start][1]
-    wcan = -(-w0 // 128) * 128 + 256
-    rows = []
-    offsets = [0] * start  # placeholder for the skipped level 0
-    off = 0
-    for padded, (ph, pw) in zip(padded_levels[start:], shapes[start:]):
-        offsets.append(off)
-        # Cast before pad/concat (halves assembly traffic) and keep every
-        # level block a multiple of 16 rows so the bf16 (16, 128)-tile
-        # concat needs no relayout.
-        block_h = -(-(ph + 16) // 16) * 16
-        rows.append(
-            jnp.pad(
-                padded.astype(jnp.bfloat16),
-                ((0, 0), (0, block_h - ph), (0, wcan - pw)),
-            )
-        )
-        off += block_h
-    canvas = jnp.concatenate(rows, axis=1) if len(rows) > 1 else rows[0]
-    hcan = off + 96
-    canvas = jnp.pad(canvas, ((0, 0), (0, hcan - off), (0, 0)))
-    return canvas, offsets, shapes
-
-
-def build_grey_src(grey: jnp.ndarray, halo: int = 16, halo_c: int = 128):
-    """Zero-padded u8 canvas with the image at (halo, halo_c) — the same
-    layout the fused frontend kernel materializes for its own strip DMAs
-    (ops.frontend_pallas emit_grey_canvas).  Used by tests and any caller
-    that wants the level-0-from-u8 warp without the fused frontend.
-    Sized so every aligned (72, 256) level-0 window DMA stays in bounds.
-    """
-    b, h, w = grey.shape
-    rows = halo + -(-h // 8) * 8 + 80
-    cols = halo_c + -(-w // 128) * 128 + 256
-    src = jnp.zeros((b, rows, cols), jnp.uint8)
-    return jax.lax.dynamic_update_slice(src, grey, (0, halo, halo_c))
-
-
-def l1_direct_ok(
-    l1_shape: tuple[int, int], shapes, levels: int
-) -> bool:
-    """True when the emitted level-1 plane's padding admits the warp
-    kernel's aligned (80, 256) window DMAs for every clamped level-1
-    window base (ops.warp_gather source 2).  All-static geometry.
-    """
-    if levels < 2:
-        return False
-    h1p, w1p = l1_shape
-    hl, wl = shapes[1]
-    win = _WARP_WIN
-    if w1p < 256:
-        return False
-    s64max = max(((wl - win) // 64) * 64, 0)
-    if s64max - (w1p - 256) > 128:  # window must start within the buffer
-        return False
-    if ((hl - win) // 16) * 16 + 80 > h1p:
-        return False
-    return True
-
-
-def warp_patches_dma(
-    canvas: jnp.ndarray,
-    offsets: list[int],
-    shapes: list[tuple[int, int]],
-    H: jnp.ndarray,  # (B, K, 3, 3)
-    quads: jnp.ndarray,  # (B, K, 4, 2)
-    patch_size: int,
-    valid: jnp.ndarray | None = None,  # (B, K) lane validity
-    interpret: bool = False,
-    src: jnp.ndarray | None = None,  # (B, Hs, Ws) u8 level-0 source
-    src_halo: tuple[int, int] = (16, 128),
-    image_hw: tuple[int, int] | None = None,
-    l1_plane: jnp.ndarray | None = None,  # (B, H1, W1) bf16 level-1 source
-    raw_src: bool = False,  # src is the RAW unpadded (B, H, W) frame
-    fuse_decode_mark: int = 0,  # >0: fused in-kernel decode to an
-    #   (m, m) cell grid (m = the dictionary mark size); returns
-    #   (patches, grids) with grids (B, K, 128) — see decode_grids.
-) -> jnp.ndarray:
-    """Batched warp via the Pallas window-DMA kernel (ops.warp_gather).
-
-    Same sampling semantics as warp_patches_mxu (per-candidate pyramid
-    level, bilinear separable weights, black outside); numerics match to
-    bf16 rounding.
-
-    When ``src`` is given (the frontend's u8 image-masked grey plane
-    (emit_split), a padded u8 grey canvas, or the int16 packed
-    refinement plane whose bits 0-7 are the image-masked grey; image
-    at ``src_halo``, ``image_hw`` true dims) level-0 windows DMA from
-    it directly and ``canvas`` must have been built with skip_level0 —
-    the full-resolution level never exists in bf16.
-
-    When ``l1_plane`` is additionally given (the fused frontend's
-    emitted level-1 plane, zero-padded; see l1_direct_ok for the
-    geometry precondition) level-1 windows DMA from it directly and
-    ``canvas`` must have been built with skip_level1 — the canvas then
-    never carries a half-resolution level either.  Window bases are
-    clamped into the plane; the kernel's 3-position half-shift absorbs
-    the clamp.
-    """
-    from .ops.warp_gather import warp_gather_eval
-
-    b, k = H.shape[0], H.shape[1]
-    s = patch_size
-    levels = len(shapes)
-    win = _WARP_WIN
-    use_src = src is not None
-
-    ys, xs = jnp.meshgrid(
-        jnp.arange(s, dtype=jnp.float32),
-        jnp.arange(s, dtype=jnp.float32),
-        indexing="ij",
-    )
-    pix = jnp.stack([xs, ys, jnp.ones_like(xs)], axis=-1).reshape(-1, 3)
-    smpl = jnp.einsum("bkij,pj->bkpi", H, pix, precision=_HIGHEST)
-    wdiv = smpl[..., 2]
-    wsafe = jnp.where(jnp.abs(wdiv) < 1e-12, 1.0, wdiv)
-    sx = smpl[..., 0] / wsafe  # (B, K, S2) image coords
-    sy = smpl[..., 1] / wsafe
-    bad = jnp.abs(wdiv) < 1e-12
-
-    bmin = jnp.min(quads, axis=-2)
-    bmax = jnp.max(quads, axis=-2)
-    side = jnp.max(bmax - bmin, axis=-1) + 4.0
-    lvl = jnp.clip(
-        jnp.ceil(jnp.log2(jnp.maximum(side / (win - 4.0), 1e-3))),
-        0,
-        levels - 1,
-    ).astype(jnp.int32)
-    center = (bmin + bmax) * 0.5
-
-    all_ty, all_tx, all_ux, all_uy, all_roff = [], [], [], [], []
-    use_l1 = l1_plane is not None
-    if use_l1:
-        assert use_src, "l1_plane routing requires the src path"
-    for level in range(levels):
-        if level == 0 and use_src:
-            # Level-0 windows address the u8 src in IMAGE coordinates;
-            # the halo offsets are applied after level selection.
-            hl, wl = image_hw
-            hl, wl = max(hl, win), max(wl, win)
-        else:
-            hl, wl = shapes[level]
-        scale = float(2**level)
-        cl = (center + 0.5) / scale - 0.5
-        tlx = jnp.clip(
-            jnp.round(cl[..., 0]).astype(jnp.int32) - win // 2, 0, wl - win
-        )
-        tly = jnp.clip(
-            jnp.round(cl[..., 1]).astype(jnp.int32) - win // 2, 0, hl - win
-        )
-        direct = (level == 0 and use_src) or (level == 1 and use_l1)
-        # Row offsets stay INTEGER and are applied to the aligned window
-        # base only (they are multiples of 16): adding them to the f32
-        # sample coords and subtracting them back would round the low
-        # mantissa bits of uy.
-        all_roff.append(0 if direct else offsets[level])
-        all_ux.append((sx + 0.5) / scale - 0.5)
-        all_uy.append((sy + 0.5) / scale - 0.5)
-        all_tx.append(tlx)
-        all_ty.append(tly)
-
-    def sel(stack, zero=0):
-        return sum(
-            jnp.where(
-                (lvl == level)[..., None]
-                if stack[0].ndim == 3
-                else lvl == level,
-                stack[level],
-                zero,
-            )
-            for level in range(levels)
-        )
-
-    ty = sel(all_ty)  # (B, K) level rows
-    tx = sel(all_tx)
-    uxl = sel(all_ux, 0.0)  # (B, K, S2) level coords
-    uyl = sel(all_uy, 0.0)
-    roff = sum(
-        jnp.where(lvl == level, jnp.int32(all_roff[level]), 0)
-        for level in range(levels)
-    )  # (B, K) canvas row offset of each window's level
-
-    s64 = (tx // 64) * 64
-    bxl = (s64 // 128) * 128
-    if raw_src:
-        # RAW level-0 source (no padded plane exists): clamp the DMA
-        # base so the (72, 256) read stays inside the frame; the true
-        # 64-lane window still fits a 128-lane sub-block at half <= 2,
-        # and the sample coords absorb the shifted start.  Requires
-        # H >= 72, W >= 256 (the detector gates on this).
-        assert use_src and src_halo == (0, 0)
-        hl0, wl0 = image_hw
-        is0r = lvl == 0
-        bxl = jnp.where(
-            is0r, jnp.minimum(bxl, max(wl0 - 256, 0)), bxl
-        )
-    if use_l1:
-        # Level-1 bases clamp into the l1 plane (it can be up to 128
-        # lanes narrower than an in-bounds 128-aligned base needs); the
-        # 64-lane window then starts at buffer offset 0, 64 or 128.
-        is1 = lvl == 1
-        bxl = jnp.where(
-            is1, jnp.minimum(bxl, l1_plane.shape[2] - 256), bxl
-        )
-    # half=3 only arises from the raw-src level-0 clamp; the 64-wide
-    # window then still fits the half-2 sub-block (offset folded into
-    # the sample coords via ``start``).
-    half = jnp.minimum((s64 - bxl) // 64, 2)
-    start = bxl + 64 * half
-    ux_rel = uxl - start[..., None].astype(jnp.float32)
-    if use_src:
-        halo_r, halo_c = src_halo
-        is0 = lvl == 0
-        al0 = 16 if src.dtype == jnp.int16 else 8  # source row alignment
-        by_img = (ty // al0) * al0
-        if raw_src:
-            by_img = jnp.minimum(by_img, max(((hl0 - 72) // 8) * 8, 0))
-        by_can = (ty // 16) * 16  # bf16 rows align to 16
-        by_rel = jnp.where(is0, by_img, by_can)
-        by = by_rel + jnp.where(is0, halo_r, roff)
-        bx = jnp.where(is0, halo_c + bxl, bxl)
-        uy_rel = uyl - by_rel[..., None].astype(jnp.float32)
-        srcsel = is0.astype(jnp.int32)
-        if use_l1:
-            srcsel = srcsel + 2 * is1.astype(jnp.int32)
-    else:
-        by_rel = (ty // 16) * 16
-        by = by_rel + roff
-        bx = bxl
-        uy_rel = uyl - by_rel[..., None].astype(jnp.float32)
-        srcsel = jnp.zeros((b, k), jnp.int32)
-        src = jnp.zeros((b, 80, 256), jnp.uint8)  # dead operand
-
-    n = b * k
-    s2 = s * s
-    bidx = jnp.repeat(jnp.arange(b, dtype=jnp.int32), k)
-    if valid is None:
-        valid = jnp.ones((b, k), dtype=bool)
-    if l1_plane is None:
-        l1_plane = jnp.zeros((b, 80, 256), jnp.bfloat16)  # dead operand
-    fuse = fuse_decode_mark > 0
-    if fuse:
-        # Degenerate-homography samples must read as 0 INSIDE the
-        # kernel (the XLA path zeroes them after the fact): an ux of
-        # -1e6 zeroes every bilinear weight, so the kernel's sample —
-        # and its fused decode — sees exactly the masked value.
-        ux_rel = jnp.where(bad, jnp.float32(-1e6), ux_rel)
-        w1, w2 = _decode_resize_ops(s, fuse_decode_mark)
-        out = warp_gather_eval(
-            canvas,
-            src,
-            l1_plane,
-            bidx,
-            by.reshape(n),
-            bx.reshape(n),
-            half.reshape(n),
-            srcsel.reshape(n),
-            valid.reshape(n),
-            ux_rel.reshape(n, s2),
-            uy_rel.reshape(n, s2),
-            w1=jnp.asarray(w1),
-            w2=jnp.asarray(w2),
-            interpret=interpret,
-            decode_n=s2,
-        )
-        vals, grids = out
-    else:
-        vals = warp_gather_eval(
-            canvas,
-            src,
-            l1_plane,
-            bidx,
-            by.reshape(n),
-            bx.reshape(n),
-            half.reshape(n),
-            srcsel.reshape(n),
-            valid.reshape(n),
-            ux_rel.reshape(n, s2),
-            uy_rel.reshape(n, s2),
-            interpret=interpret,
-        )
-    # Invalid lanes skipped their window DMA (garbage) — zero them, like
-    # degenerate-homography samples.
-    keep = valid.reshape(n, 1) & ~bad.reshape(n, s2)
-    vals = jnp.where(keep, vals, 0.0)
-    patches = vals.reshape(b, k, s, s)
-    if fuse:
-        grids = jnp.where(
-            valid.reshape(n, 1), grids, 0.0
-        ).reshape(b, k, 128)
-        return patches, grids
-    return patches
 
 
 # --------------------------------------------------------------------------
@@ -764,11 +351,10 @@ def otsu_level(patches: jnp.ndarray) -> jnp.ndarray:
     vals = jnp.clip(jnp.round(patches), 0, 255).astype(jnp.int32)
     vals = vals.reshape(k, -1)
     n = vals.shape[1]
-    # Histogram via a hi/lo-nibble outer product on the MXU: hist[h, l] =
-    # #pixels with value h*16+l = <hi one-hot, lo one-hot> contracted over
-    # pixels.  Exact: one-hot entries are 0/1 (exact in bf16) and the f32
-    # accumulator sums <= S^2 ones.  The naive (K, S^2, 256) compare-
-    # reduce was the decode stage's dominant cost (~10 ms at batch 128).
+    # Histogram via a hi/lo-nibble outer product: hist[h, l] = #pixels
+    # with value h*16+l = <hi one-hot, lo one-hot> contracted over pixels,
+    # instead of a (K, S^2, 256) compare-reduce.  Exact: one-hot entries
+    # are 0/1 (exact in bf16) and the f32 accumulator sums <= S^2 ones.
     nib = jnp.arange(16, dtype=jnp.int32)
     hi = ((vals[:, :, None] >> 4) == nib).astype(jnp.bfloat16)  # (K, N, 16)
     lo = ((vals[:, :, None] & 15) == nib).astype(jnp.bfloat16)
@@ -776,17 +362,15 @@ def otsu_level(patches: jnp.ndarray) -> jnp.ndarray:
         "knh,knl->khl", hi, lo, preferred_element_type=jnp.float32
     ).reshape(k, 256)
 
-    # INTEGER-EXACT formulation, kept expression-identical to the warp
-    # kernel's fused-decode epilogue (ops.warp_gather): W (class-0
-    # counts) and M (class-0 value sums) are exact integers in f32
-    # (cumsums of integers < 2^24 are associativity-independent), and
-    # the unnormalized between-class score
+    # W (class-0 counts) and M (class-0 value sums) are exact integers
+    # in f32 (cumsums of integers < 2^24 do not depend on summation
+    # order), and the unnormalized between-class score
     #   f(t) = (MT*W - M*n)^2 / (W*(n - W))  ==  n^2 * sigma_b^2(t)
-    # shares its argmax with imageproc's sigma_b^2.  Evaluating the
-    # SAME expression from the SAME exact integers on both paths makes
-    # flat-histogram near-ties (noise windows) resolve identically —
-    # the normalized-float version diverged from the kernel on ~1e-7
-    # relative rounding and flipped levels on noise plateaus.
+    # shares its argmax with imageproc's sigma_b^2.  The score itself is
+    # rounded f32, not exact, but it is one expression of exact integer
+    # inputs, so flat-histogram near-ties (noise windows) resolve the
+    # same on every backend; a normalized-float form flips levels on
+    # noise plateaus from ~1e-7 relative rounding.
     binsf = jnp.arange(256, dtype=jnp.float32)
     nf = jnp.float32(n)
     w_ = jnp.cumsum(hist, axis=-1)  # class 0 = values <= t
@@ -836,7 +420,7 @@ def _triangle_resize_matrix(src: int, dst: int) -> np.ndarray:
 
 def resize_triangle(patches: jnp.ndarray, dst: int) -> jnp.ndarray:
     """(K, S, S) -> (K, dst, dst) separable Triangle resize via two matmuls
-    (MXU path), matching image::imageops::resize FilterType::Triangle as
+    (matmul path), matching image::imageops::resize FilterType::Triangle as
     used at reference aruco.rs:273."""
     src = patches.shape[-1]
     L = jnp.asarray(_triangle_resize_matrix(src, dst))
@@ -852,53 +436,6 @@ def resize_triangle(patches: jnp.ndarray, dst: int) -> jnp.ndarray:
 # --------------------------------------------------------------------------
 # Bit extraction
 # --------------------------------------------------------------------------
-@functools.lru_cache(maxsize=None)
-def _decode_resize_ops(s: int, mark_size: int) -> tuple:
-    """Host-built flattened Triangle-resize operators for the fused
-    in-kernel decode (ops.warp_gather decode epilogue).
-
-    Samples live flattened in lanes (index y*s + x, zero-padded to a
-    128-multiple); the separable resize then factors into two matmuls:
-      W1[(y*s + x), (yo*s + x)] = L[yo, y]   (contract rows)
-      W2[(yo*s + x), (yo*m + xo)] = L[xo, x] (contract columns)
-    — each output element sums exactly the terms the XLA
-    resize_triangle einsums sum (padding rows/cols are zero).
-    """
-    m = mark_size
-    s2 = s * s
-    s2p = -(-s2 // 128) * 128
-    r1 = -(-(m * s) // 128) * 128
-    L = _triangle_resize_matrix(s, m)
-    w1 = np.zeros((s2p, r1), np.float32)
-    w2 = np.zeros((r1, 128), np.float32)
-    for yo in range(m):
-        for y in range(s):
-            ly = L[yo, y]
-            if ly == 0.0:
-                continue
-            for x in range(s):
-                w1[y * s + x, yo * s + x] = ly
-    for yo in range(m):
-        for xo in range(m):
-            for x in range(s):
-                lx = L[xo, x]
-                if lx != 0.0:
-                    w2[yo * s + x, yo * m + xo] = lx
-    return w1, w2
-
-
-def decode_grids(
-    grids: jnp.ndarray, mark_size: int
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Fused-decode tail: (K, 128) kernel cell grids (lane yo*m+xo =
-    1.0 for a white cell) -> the same (bits, valid) as decode_patches
-    (border gate, 4 CCW rotations, MSB-first read)."""
-    k = grids.shape[0]
-    m = mark_size
-    grid = grids[:, : m * m].reshape(k, m, m) > 0.5
-    return _grid_tail(grid, m)
-
-
 def decode_patches(
     patches: jnp.ndarray, mark_size: int
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -924,8 +461,7 @@ def decode_patches(
 def _grid_tail(
     grid: jnp.ndarray, mark_size: int
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """(K, m, m) bool white-cell grid -> (bits, border valid); shared by
-    the XLA and fused-kernel decode paths."""
+    """(K, m, m) bool white-cell grid -> (bits, border valid)."""
     k = grid.shape[0]
     border = jnp.concatenate(
         [

@@ -1,31 +1,42 @@
-"""Persistent compilation cache (checkpoint/resume analogue, SURVEY §5).
+"""Persistent compilation cache.
 
-The reference library is stateless per frame; the only expensive state in
-this framework is XLA compilation (tens of seconds per program through a
-remote compiler).  ``enable_compilation_cache`` persists compiled
-executables across processes so a restarted pipeline resumes at full speed
-without recompiling — the framework's checkpoint/resume story.
+The only expensive state in this package is XLA compilation: a cold
+process compiles each program shape anew (tens of seconds for the 1080p
+batch program).  ``enable_compilation_cache`` keeps compiled executables
+on disk so a restarted pipeline or benchmark starts without recompiling.
+
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads that variable itself, so nothing here overrides it), otherwise one
+fixed directory inside the checkout.  The directory is part of the cache
+key, so it never depends on a temporary name, a pid or the time.
 """
 
 from __future__ import annotations
 
 import os
 
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-def enable_compilation_cache(
-    cache_dir: str = os.path.expanduser("~/.cache/aruco3_tpu/xla"),
-    min_compile_time_secs: float = 1.0,
-) -> str:
+
+def cache_dir() -> str:
+    """The directory the persistent compilation cache uses."""
+    return os.environ.get(ENV_VAR) or DEFAULT_DIR
+
+
+def enable_compilation_cache(min_compile_time_secs: float = 1.0) -> str:
     """Turn on JAX's persistent compilation cache. Returns the directory."""
     import jax
 
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    path = cache_dir()
+    if not os.environ.get(ENV_VAR):
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update(
         "jax_persistent_cache_min_compile_time_secs", min_compile_time_secs
     )
-    try:
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass
-    return cache_dir
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return path

@@ -34,7 +34,6 @@ False validity bit instead of changing shapes.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import jax
@@ -50,11 +49,10 @@ class QuadParams:
     coarse_factor: int = 8  # downsample factor for the CCL grid
     ccl_rounds: int = 3  # label scan rounds (solid blobs converge in 2-3;
     #   markers label on HOLE-FILLED planes in both passes, so 3 carries a
-    #   round of margin.  MEASURED round 5: ccl_rounds=2 keeps 320x240
+    #   round of margin.  Measured on the CPU: ccl_rounds=2 keeps 320x240
     #   parity at 1.0 but drops the 150-scene 1080p ARUCO_MIP_36H12
     #   parity 0.9883 -> 0.9766 (fragmented components at production
-    #   coarse factors need the third round) — the ~0.6 ms/batch it
-    #   would save is not worth the recall; keep 3.)
+    #   coarse factors need the third round); keep 3.)
     fill_rounds: int = 5  # border-reachability flood rounds for hole fill
     min_component_px: int = 3  # in coarse pixels
     containment_slack: float = 1.5  # in coarse cells
@@ -91,8 +89,8 @@ class QuadParams:
 # (set < 0) without editing the merge.
 INNER_DUP_CHEBYSHEV_DS = 2.0
 
-# Minimal offset sets for the pool-admission size test (fit_quads and
-# ops.fit_pallas._rank_prep share them): counting same-label cells at
+# Minimal offset sets for the pool-admission size test (fit_quads):
+# counting same-label cells at
 # these offsets from a component ROOT (its raster-minimum cell) gives
 # >= t-1 hits iff the 4-connected component has >= t cells.  Proof for
 # t=3: the root's first in-component neighbour n1 is (0,1) or (1,0)
@@ -167,8 +165,6 @@ def pool_black(black: jnp.ndarray, ds: int) -> jnp.ndarray:
     h, w = black.shape
     hp = -(-h // ds) * ds
     wp = -(-w // ds) * ds
-    # Cast before reducing: bool reductions over the tiled reshape lower
-    # to a pathological layout on TPU (~100x slower than int32).
     m = jnp.pad(black, ((0, hp - h), (0, wp - w))).astype(jnp.int32)
     pooled = m.reshape(hp // ds, ds, wp // ds, ds).sum(axis=(1, 3))
     return pooled * 2 >= max(ds, 2)
@@ -180,8 +176,7 @@ def _segmented_min_scan(l, mask, sentinel, axis):
     Each in-mask element receives the min over its contiguous in-mask run
     (both directions).  Out-of-mask elements act as segment boundaries and
     come back as the sentinel.  Shift-by-powers-of-two with blocked-flag
-    bookkeeping — pure vector min/or/select ops, no gathers, and ~4x
-    cheaper than jax.lax.associative_scan on TPU.
+    bookkeeping — pure vector min/or/select ops, no gathers.
     """
     n = l.shape[axis]
     shape = [1] * l.ndim
@@ -275,7 +270,7 @@ def fill_holes(black: jnp.ndarray, rounds: int) -> jnp.ndarray:
     filling each marker is one solid quad blob.  Solid convex regions then
     converge under row/column label scans in 2-3 rounds regardless of
     rotation — whereas a thin rotated ring would need O(perimeter) rounds
-    (TPU has no fast gather, so pointer jumping is not an option).
+    of label propagation.
     """
     white = ~black
     reach = flood_from_border(white, rounds)
@@ -295,11 +290,10 @@ def label_components(black: jnp.ndarray, rounds: int) -> jnp.ndarray:
     the linear index of its component representative (the component's
     minimum linear index); white pixels hold the sentinel P = Hc*Wc.
 
-    TPU-native rationale: per-element gathers (classic pointer jumping)
-    serialize on TPU (~100x slower than vector ops), so each round instead
-    transports labels across whole rows/columns with segmented min-scans
-    plus one 8-neighbour min for diagonal connections.  Solid convex blobs
-    converge in 2-3 rounds independent of size or rotation.
+    Each round transports labels across whole rows/columns with segmented
+    min-scans plus one 4-neighbour min, in a fixed number of rounds (no
+    pointer jumping).  Solid convex blobs converge in 2-3 rounds
+    independent of size or rotation.
     """
     hc, wc = black.shape
     p = hc * wc
@@ -348,8 +342,8 @@ def fit_quads(
       qualifying: () int32 — total component count (including any beyond
                   the K lanes: overflow accounting)
 
-    Lane assignment is scatter- and sort-free in the expensive dimension
-    (scatter and P-length sorts both serialize on TPU): a component's
+    Lane assignment is scatter- and sort-free in the expensive dimension:
+    a component's
     representative cell is its own label ("root"); roots are ranked in
     raster order by a cumsum into KR >= K internal lanes, their sizes are
     counted with one (KR, P) masked reduction, and the final K lanes are
@@ -469,15 +463,13 @@ def fit_quads(
     # Signed distance of pixel to edge line: z = ex*dy - ey*dx (positive on
     # the interior side for shoelace-positive orientation), in the EXPANDED
     # per-edge form py*a - px*b + c0 with the shoelace sign folded into the
-    # scalar coefficients — the TPU fit kernel (ops.fit_pallas) computes
-    # the identical expression, keeping the two paths bit-for-bit equal.
-    # Accumulate the inside mask edge by edge — materializing a (K, 4, P)
-    # tensor costs ~4x the HBM traffic of four (K, P) passes.
+    # scalar coefficients.  Accumulate the inside mask edge by edge rather
+    # than materializing a (K, 4, P) tensor.
     av = sgn[:, None] * ex  # (K, 4)
     bv = sgn[:, None] * ey
     c0 = bv * e_from[..., 0] - av * e_from[..., 1]
     # The per-edge constant folds into the compare's SCALAR side (one
-    # plane op per edge fewer; the fit stage is VPU-issue-bound).
+    # plane op per edge fewer).
     rhs = -slack * elen - c0  # (K, 4)
     inside = None
     for e in range(4):
@@ -694,12 +686,7 @@ def extract_candidates(coarse: jnp.ndarray, params: QuadParams, ds: int):
 
 
 def label_planes(coarse: jnp.ndarray, params: QuadParams):
-    """Outer + inner label planes for one coarse mask (XLA path).
-
-    Semantically identical to ops.coarse_pallas.coarse_labels (the VMEM
-    mega-kernel); used directly on CPU and as the fallback for coarse
-    grids too large for the kernel's VMEM budget.
-    """
+    """Outer + inner label planes for one coarse mask."""
     # Outer pass: plain hole fill + CCL over ALL black.  Border-connected
     # black stays in (markers clipped at the image edge keep their — open,
     # unfilled — ring and are still fitted, like the reference's clipped
@@ -741,8 +728,8 @@ def label_planes(coarse: jnp.ndarray, params: QuadParams):
         seed0 = (border | _dilate3(bg)) & white
         known = flood(white, seed0, params.fill_rounds)
         # fori_loop over depths (the XLA CPU compiler chokes on the
-        # unrolled program late in long test runs; remote TPU compiles
-        # are minutes faster too).  The final iteration's known-grow is
+        # unrolled program late in long test runs).  The final
+        # iteration's known-grow is
         # dead (known is not read afterwards), so looping it
         # unconditionally preserves semantics exactly.
         def peel(_, carry):
@@ -836,14 +823,7 @@ def label_planes(coarse: jnp.ndarray, params: QuadParams):
 def candidates_from_labels(
     labels: jnp.ndarray, labels2: jnp.ndarray, params: QuadParams, ds: int
 ):
-    """Fit + merge the outer/inner label planes into K candidate lanes.
-
-    Shared by the XLA path (extract_candidates) and the fused Pallas
-    coarse kernel (ops.coarse_pallas.coarse_labels), which produce
-    identical label planes.  The batched detector fits with the
-    lane-skipping Pallas kernels instead (ops.fit_pallas) and reuses
-    ``merge_fits`` below — bit-identical either way.
-    """
+    """Fit + merge the outer/inner label planes into K candidate lanes."""
     k1 = params.max_candidates
     k2 = params.max_inner_candidates
     fit = fit_quads(labels, ds, params, k=k1)
@@ -854,20 +834,15 @@ def candidates_from_labels(
 
 
 def merge_fits(
-    labels: jnp.ndarray | None,
-    labels2: jnp.ndarray | None,
+    labels: jnp.ndarray,
+    labels2: jnp.ndarray,
     fit: dict,
     fit2: dict | None,
     params: QuadParams,
     ds: int,
-    inner_coarse: jnp.ndarray | None = None,
 ):
     """Merge the outer/inner fits into K candidate lanes (size priority,
-    outer winning ties, same-marker inner duplicates suppressed).
-
-    ``inner_coarse``: precomputed dilated inner footprint (the fused
-    coarse+fit kernel emits it in-kernel); when given, the label planes
-    are not consulted and may be None."""
+    outer winning ties, same-marker inner duplicates suppressed)."""
     k1 = params.max_candidates
     k2 = params.max_inner_candidates
 
@@ -878,9 +853,8 @@ def merge_fits(
 
         # Every free-standing marker ring is also a non-border-connected
         # component, so pass 2 re-fits what pass 1 already holds.  Kill
-        # those duplicates BEFORE the merge: the freed lanes go to real
-        # candidates, and the refine/warp kernels skip the dead lanes'
-        # window DMAs and compute.  Same-component fits agree within the
+        # those duplicates BEFORE the merge so the freed lanes go to real
+        # candidates.  Same-component fits agree within the
         # pooling quantum (cyclic-min Chebyshev corner distance <= 2*ds),
         # while a genuinely nested marker that could survive the min-edge
         # gate (side >= 0.05*min(h,w) for its INNER marker, so >= 3x that
@@ -900,11 +874,8 @@ def merge_fits(
         # the outer lane's (root, size) — root is the raster-min member
         # and both planes index the same cropped linear space.  Equal
         # sets fit identical quads, so the Chebyshev rule above would
-        # kill these anyway; testing (root, size) directly lets the
-        # fused fit kernel SKIP the twin lanes' fit chains entirely
-        # (~half the per-frame lane chains on marker scenes) — their
-        # quads come back zero, and this rule keeps the XLA and kernel
-        # paths agreeing on `valid` without ever comparing those quads.
+        # kill these anyway; the (root, size) test also catches twins
+        # whose quads were never compared.
         twin = (
             (fit2["roots"][:, None] == fit["roots"][None, :])
             & (fit2["sizes"][:, None] == fit["sizes"][None, :])
@@ -939,9 +910,8 @@ def merge_fits(
         sizes = jnp.take(sizes_c, sel, axis=0)
         centroids = jnp.take(cents_c, sel, axis=0)
         is_inner = sel >= k1
-        if inner_coarse is None:
-            filled2 = labels2 < labels2.size  # sentinel == grid size
-            inner_coarse = _dilate3(filled2)
+        filled2 = labels2 < labels2.size  # sentinel == grid size
+        inner_coarse = _dilate3(filled2)
         n_valid = jnp.sum(valid_c.astype(jnp.int32))
         overflow = overflow + jnp.maximum(
             n_valid - jnp.sum(valid.astype(jnp.int32)), 0
@@ -950,8 +920,7 @@ def merge_fits(
         quads, valid = fit["quads"], fit["valid"]
         sizes, centroids = fit["sizes"], fit["centroids"]
         is_inner = jnp.zeros(quads.shape[0], dtype=bool)
-        if inner_coarse is None:
-            inner_coarse = jnp.zeros(labels.shape, dtype=bool)
+        inner_coarse = jnp.zeros(labels.shape, dtype=bool)
 
     return {
         "quads": quads,
@@ -967,30 +936,6 @@ def merge_fits(
 
 def refine_window_size(params: QuadParams, ds: int) -> int:
     return params.refine_window or min(64, max(12, 2 * ds + 8))
-
-
-def build_packed_plane(
-    grey: jnp.ndarray,
-    black: jnp.ndarray,
-    inner_coarse: jnp.ndarray,
-    ds: int,
-) -> jnp.ndarray:
-    """(H, W) int32 refinement plane: grey | near<<8 | inner-footprint<<9.
-
-    near = twice-dilated opened-black ("ink lives within 2 px of the
-    opened component"); bit 9 is the upsampled inner-component footprint
-    alone — the refinement kernel ANDs bits 8 and 9 for inner lanes (see
-    refine_corners docstring), which keeps bit 9 independent of bit 8 so
-    the fused frontend can emit bits 0-8 and this combine stays one pass.
-    """
-    h, w = grey.shape
-    near = _dilate3(_dilate3(black))
-    up = jnp.repeat(jnp.repeat(inner_coarse, ds, axis=0), ds, axis=1)[:h, :w]
-    return (
-        grey.astype(jnp.int32)
-        | (near.astype(jnp.int32) << 8)
-        | (up.astype(jnp.int32) << 9)
-    )
 
 
 def finalize_quads(
@@ -1036,11 +981,7 @@ def find_quads_from_masks(
 ):
     """(black full-res, coarse pooled) masks -> fixed-capacity quads.
 
-    The masks come either from the XLA frontend (open_mask + pool_black)
-    or from the fused Pallas kernel (ops.frontend_pallas) — identical
-    bits.  This is the portable single-frame path (XLA refinement); the
-    batched detector uses extract_candidates + the Pallas refinement
-    kernel + finalize_quads directly.
+    The masks come from the frontend (open_mask + pool_black).
     """
     cand = extract_candidates(coarse, params, ds)
     quads = cand["quads"]

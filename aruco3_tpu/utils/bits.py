@@ -3,7 +3,7 @@
 Parity notes: `hamming_distance` mirrors the reference crate's XOR+popcount
 helper (reference src/lib.rs:11-21).  On device we never touch 64-bit
 integers: code words are carried either as (…, 2) uint32 (lo, hi) pairs or as
-±1 bit-plane vectors so the Hamming search can ride the MXU as a matmul.
+±1 bit-plane vectors so the Hamming search is one matmul.
 Bit index convention everywhere: bit 0 = least-significant bit of the u64.
 """
 
@@ -42,7 +42,7 @@ def codes_to_bitplanes(codes: np.ndarray, num_bits: int) -> np.ndarray:
     bit-plane vectors x, y over `num_bits` lanes satisfies
         dist(x, y) = (num_bits - x . y) / 2,
     turning the whole-dictionary Hamming scan (reference
-    src/dictionaries.rs:160-196) into one dense matmul on the MXU.
+    src/dictionaries.rs:160-196) into one dense matmul.
     """
     codes = np.asarray(codes, dtype=np.uint64)
     shifts = np.arange(num_bits, dtype=np.uint64)
@@ -58,7 +58,7 @@ def bits_to_bitplane_jnp(bits: jnp.ndarray) -> jnp.ndarray:
 def bitplane_hamming(
     query: jnp.ndarray, codebook_t: jnp.ndarray, num_bits: int
 ) -> jnp.ndarray:
-    """Batched Hamming distances via a single MXU matmul.
+    """Batched Hamming distances via a single matmul.
 
     query:       (M, num_bits) float32 in {-1, +1}
     codebook_t:  (num_bits, N) float32 in {-1, +1}
@@ -69,7 +69,7 @@ def bitplane_hamming(
 
 
 def u32pair_hamming(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Popcount Hamming distance on (…, 2) uint32 pairs (VPU path)."""
+    """Popcount Hamming distance on (…, 2) uint32 pairs."""
     import jax
 
     x = jnp.bitwise_xor(a, b)

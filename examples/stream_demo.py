@@ -2,7 +2,7 @@
 """Live multi-stream AR loop on synthetic cameras.
 
 Counterpart of the reference's webcam loop (reference
-examples/webcam_kamera.rs:28-77), TPU-shaped: four producer threads
+examples/webcam_kamera.rs:28-77), batched: four producer threads
 synthesize 1080p/VGA camera feeds of a moving marker, push frames into the
 native ring buffers, and the StreamPipeline batches them through the jitted
 detect(+pose) program while the next batch assembles.  Prints per-second

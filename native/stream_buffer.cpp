@@ -1,7 +1,7 @@
 // aruco3_tpu native streaming runtime.
 //
 // The reference's "runtime" is a synchronous per-frame webcam loop
-// (reference examples/webcam_kamera.rs:28-77).  The TPU framework needs the
+// (reference examples/webcam_kamera.rs:28-77).  The batched detector needs the
 // host side to keep one or more camera/video streams flowing into
 // fixed-shape frame batches without stalling the device: that ingest path
 // (ring buffers, batch assembly, luma conversion) is bandwidth-bound host

@@ -1,4 +1,4 @@
-"""Reference-parity suite: the TPU detector must reproduce >=99% of the
+"""Reference-parity suite: the detector must reproduce >=99% of the
 reference pipeline's detections (BASELINE.json requirement).
 
 The "reference" here is aruco3_tpu.oracle — a faithful numpy port of the
@@ -103,7 +103,7 @@ def test_oracle_detects_dark_background():
 
 # ------------------------------------------------------------- e2e parity
 def test_recall_parity_vs_reference_pipeline():
-    """>=99% of the oracle's detections must also be TPU detections, over
+    """>=99% of the oracle's detections must also be detector detections, over
     a seeded randomized scene mix (plain/dark/multi/nested).  144 scenes
     (~168 markers) so a single miss costs ~0.6%, not ~1.4%."""
     n = int(os.environ.get("ARUCO3_PARITY_SCENES", "144"))
@@ -111,9 +111,9 @@ def test_recall_parity_vs_reference_pipeline():
     s = res.summary()
     assert res.oracle_found >= 0.7 * res.n_markers, s  # oracle sane
     assert res.parity >= 0.99, s
-    # Corner agreement with ground truth: TPU at least as accurate as the
+    # Corner agreement with ground truth: the detector at least as accurate as the
     # pixel-quantized reference pipeline on average.
-    assert s["tpu_corner_mean_px"] < 2.0, s
+    assert s["det_corner_mean_px"] < 2.0, s
     # No family may silently carry the misses: each >= 0.95 with the
     # small per-family counts (the 0.99 floor binds on the total).
     for kind, fam in s["per_family"].items():

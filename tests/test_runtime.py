@@ -10,8 +10,9 @@ from aruco3_tpu.runtime import stream as rt
 
 
 def test_native_lib_loaded():
-    # tools/build_native.sh must have been run (the repo builds it in CI).
-    assert rt._LIB is not None, "run tools/build_native.sh"
+    # Built from native/stream_buffer.cpp on first use when missing.
+    assert rt.native_lib() is not None, "tools/build_native.sh failed"
+    assert rt.FrameRing((2, 2))._native
 
 
 def test_ring_push_pop_order():
@@ -68,7 +69,7 @@ def test_stream_pipeline_overlaps_assembly_with_device():
     in-flight device batch: with an artificially slow 'device' (50 ms) and
     slow assembly (30 ms), N pipelined batches must take ~max(50,30) each,
     well under the 80 ms serial sum (reference webcam loop is serial,
-    examples/webcam_kamera.rs:28-77 — this is the TPU-shaped replacement)."""
+    examples/webcam_kamera.rs:28-77 — this is the batched replacement)."""
     import time
 
     dev_ms, asm_ms, batches = 0.05, 0.03, 8

@@ -112,9 +112,7 @@ def test_sharded_1080p_production_geometry():
     8-device shard_map batch at 1080p / default config / the headline
     dictionary, asserted EQUAL to the identical program on a 1-device
     mesh (the small-frame sharding tests above never touch the 1080p
-    shapes).  On the CPU mesh both runs take the XLA kernel path —
-    per-frame semantics are the same the Pallas path is tested
-    bit-exact against elsewhere.  Subprocess-isolated: the 1080p detect
+    shapes).  Subprocess-isolated: the 1080p detect
     program is the XLA CPU compiler's biggest input (see
     test_graft_entry_single)."""
     import subprocess

@@ -2,10 +2,9 @@
 """Full-size reference-parity measurement (recorded in BASELINE.md).
 
 Runs the randomized scene mix (plain/dark/multi/nested) through both the
-TPU detector and the reference-pipeline oracle and prints recall/parity/
-corner statistics, per scene family.  Runs on CPU (the oracle is
-host-side anyway and the detector's CPU path is bit-identical to the TPU
-path's semantics).
+detector and the reference-pipeline oracle and prints recall/parity/
+corner statistics, per scene family.  Runs on the CPU (the oracle is
+host-side anyway, and the detector runs the same one path everywhere).
 
 Usage:
   python tools/parity_report.py [n_scenes] [width height] [dict]
